@@ -1,10 +1,11 @@
-"""document_search_engine_tpu — a TPU-native lexical retrieval stack.
+"""document_search_engine_tpu — a lexical retrieval stack on GPUs.
 
-Brand-new framework with the capabilities of the small Python full-text
-search engine `CodeOptimist/document-search-engine` (BASELINE.json:5),
-re-designed TPU-first: hashed-term analyzer, document-sharded CSR
-term–document matrix in HBM, Pallas TF-IDF/BM25 scoring over batched
-queries, per-shard top-k + all-gather merge over ICI. See DESIGN.md.
+Framework with the capabilities of the small Python full-text search
+engine `CodeOptimist/document-search-engine` (BASELINE.json:5), built as
+a batched device engine: hashed-term analyzer, document-sharded CSR
+term–document matrix in device memory, a fused CUDA TF-IDF/BM25 scoring
+and ranking kernel over batched queries (an XLA twin elsewhere),
+per-shard top-k + all-gather merge across devices. See DESIGN.md.
 """
 from .config import AnalyzerConfig, IndexConfig, ScoringConfig
 

@@ -18,11 +18,15 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m if m > 1 else x
 
 
+# Records per plane row: postings live in (X, LANES) int32 planes and
+# every term row starts at a LANES-aligned flat offset (SegmentDevice).
+LANES = 128
+
 # Builders pad the posting planes to aligned_nnz + NNZ_SLICE_MARGIN so
-# block-aligned dynamic_slice/DMA packing (ops/packed.py,
-# ops/fused_pallas.py) can read whole blocks past a row's end without
+# block-aligned reads (ops/packed.py dynamic slices, the CUDA kernel of
+# ops/fused_cuda.py) can cover whole blocks past a row's end without
 # clamping. Any packing block size must be <= this margin — asserted at
-# the kernel entry points.
+# the plan and scorer entry points.
 NNZ_SLICE_MARGIN = 4096
 
 
@@ -103,10 +107,9 @@ class SegmentDevice:
     128-record-ALIGNED (X, 128) int32 planes: each term row starts at a
     128-aligned flat offset (`row_start`, flat index = r*128 + l), with
     sentinel-doc/zero-val padding between rows and a NNZ_SLICE_MARGIN
-    tail. The alignment is what lets the fused Pallas kernel
-    (ops/fused_pallas.py) DMA whole (block/128, 128) row-ranges — Mosaic
-    rejects narrower HBM slices — and it is harmless to the XLA
-    dynamic-slice path (padding entries carry sentinel doc + val 0).
+    tail. Plan tables address the planes in whole 128-record rows
+    (ops/plan.py); padding entries carry sentinel doc + val 0, so reads
+    past a row's end are inert.
     """
 
     indptr: jnp.ndarray  # (T+1,) int32 — TRUE cumulative row lengths

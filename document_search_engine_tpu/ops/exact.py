@@ -9,7 +9,7 @@ contribution, and across slots sums are *integer*, so every execution order
 gives bit-identical scores — the property the BASELINE.json:5 parity gate
 rests on.
 
-Device ops used: gather, IEEE f32 multiply (exactly rounded on TPU),
+Device ops used: gather, IEEE f32 multiply (exactly rounded on every backend),
 round-half-even, int32 scatter-add — all bit-reproducible vs numpy.
 """
 from __future__ import annotations

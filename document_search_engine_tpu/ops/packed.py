@@ -1,19 +1,17 @@
-"""Packed sort-based scorer+ranker: the portable XLA search step.
+"""Packed sort-based scorer+ranker: the XLA search step.
 
-On TPU the production step is the fused Pallas kernel
-(ops/fused_pallas.py); the functions here are its bit-identical XLA
-twins — `search_packed_tables` consumes the very same DMA plan tables —
-and the default on CPU backends. All replace the dense (nq, n_docs)
-score buffer + scatter-add + giant top-k (which scale with corpus size
-and hit TPU scatter, its slowest op) with a pipeline whose cost depends
-only on the postings actually touched:
+`search_packed_tables` is the XLA twin of the CUDA fused kernel
+(ops/fused_cuda.py): it consumes the very same plan tables
+(ops/plan.py), serves every bucket the kernel does not take, and is the
+scorer on backends without CUDA. The functions here replace the dense
+(nq, n_docs) score buffer + scatter-add + giant top-k (which scale with
+corpus size) with a pipeline whose cost depends only on the postings
+actually touched:
 
 1. pack     — address exactly the CSR postings of each query's slots into a
               (nq, C) buffer, C = pow-2 budget of the batch's max total
               postings per query (computed on host from indptr). Slot
-              bookkeeping uses masked sums over the S slots, not gathers
-              (measured: take_along_axis costs ~50ms per 4M elements on
-              this TPU; elementwise masked sums are ~1ms).
+              bookkeeping uses masked sums over the S slots, not gathers.
 2. quantize — fixed-point int32 contributions (DESIGN.md §2);
 3. sort     — per-row `lax.sort` by doc id (co-permuting contributions);
 4. reduce   — a doc can appear at most once per slot, so after the sort
@@ -142,14 +140,12 @@ def rank_candidates(d_key, ci, doc_base, s: int, k: int, n_docs: int):
         "s",
         "k",
         "n_docs",
-        "use_rank_pallas",
-        "rank_interpret",
     ),
 )
 def search_packed_tables(
     post_doc2: jnp.ndarray,  # (X, 128) i32 aligned doc plane
     post_val2: jnp.ndarray,  # (X, 128) i32 aligned bitcast-f32 vals
-    srcrow: jnp.ndarray,  # (nq, 1, NB) i32 plan (ops/fused_pallas.py)
+    srcrow: jnp.ndarray,  # (nq, 1, NB) i32 plan (ops/plan.py)
     rem: jnp.ndarray,  # (nq, 1, NB) i32
     abits: jnp.ndarray,  # (nq, 1, NB) i32 bitcast-f32 slot coefficients
     scale: jnp.ndarray,
@@ -160,18 +156,15 @@ def search_packed_tables(
     s: int,  # query slot count (bounds per-doc occurrences per row)
     k: int,
     n_docs: int,
-    use_rank_pallas: bool = False,
-    rank_interpret: bool = False,
     dlim: jnp.ndarray | None = None,  # (nq, 1, 2) i32 [d_lo, d_hi)
 ):
-    """XLA twin of the fused Pallas kernel: consumes the exact same
-    per-(query, block) DMA plan tables (fused_pallas.plan_tables) so the
-    serving paths stage once and pick the backend per platform.
+    """XLA twin of the CUDA fused kernel: consumes the exact same
+    per-(query, block) plan tables (ops/plan.py plan_tables) so the
+    serving paths stage once and pick the scorer per bucket.
     Bit-identical to the kernel and to search_packed (tested).
 
     dlim (doc-range splitting): per plan row, postings with doc outside
-    [d_lo, d_hi) are masked like rem-tail padding — the twin of the
-    fused kernel's has_dlim mask."""
+    [d_lo, d_hi) are masked like rem-tail padding — as in the kernel."""
     from ..index.csr import NNZ_SLICE_MARGIN
 
     assert block <= NNZ_SLICE_MARGIN, (
@@ -210,13 +203,6 @@ def search_packed_tables(
     ci = jnp.clip(ci_f, 0.0, clip).astype(jnp.int32)
     ci = jnp.where(valid, ci, 0).reshape(nq, n_blocks * block)
     d_key = jnp.where(valid, d_b, n_docs).reshape(nq, n_blocks * block)
-    if use_rank_pallas:
-        from .rank_pallas import rank_candidates_pallas
-
-        return rank_candidates_pallas(
-            d_key, ci, doc_base, block=block, s=s, k=k, n_docs=n_docs,
-            interpret=rank_interpret,
-        )
     return rank_candidates(d_key, ci, doc_base, s, k, n_docs)
 
 
@@ -249,8 +235,6 @@ def _src_table(starts, lens, n_blocks: int, block: int, nnz_pad: int):
         "k",
         "n_docs",
         "block",
-        "use_rank_pallas",
-        "rank_interpret",
     ),
 )
 def search_packed_ds(
@@ -268,17 +252,12 @@ def search_packed_ds(
     k: int,
     n_docs: int,
     block: int = 512,
-    use_rank_pallas: bool = False,
-    rank_interpret: bool = False,
 ):
     """search_packed with the packing stage as vmapped `dynamic_slice`
-    block copies over the aligned posting planes — contiguous-block
-    slicing streams where element gathers run at ~0.4 GB/s on TPU.
-    Destination regions are block-aligned per slot; the builder's
-    NNZ_SLICE_MARGIN tail keeps block reads past a row's end in bounds.
-    Bit-identical to search_packed (tested). This is the portable XLA
-    scorer; on TPU the fused Pallas kernel (ops/fused_pallas.py) is the
-    production step.
+    block copies over the aligned posting planes. Destination regions
+    are block-aligned per slot; the builder's NNZ_SLICE_MARGIN tail keeps
+    block reads past a row's end in bounds. Bit-identical to
+    search_packed (tested).
     """
     from ..index.csr import NNZ_SLICE_MARGIN
 
@@ -334,14 +313,4 @@ def search_packed_ds(
     ci = jnp.clip(ci_f, 0.0, clip).astype(jnp.int32)
     ci = jnp.where(valid, ci, 0)
     d_key = jnp.where(valid, d, n_docs)
-    if use_rank_pallas:
-        # fused Pallas rank stage: bitonic merge of the block-sorted
-        # runs + run-sums + top-k in VMEM (ops/rank_pallas.py) — exact
-        # same fixed-point results as rank_candidates (tested)
-        from .rank_pallas import rank_candidates_pallas
-
-        return rank_candidates_pallas(
-            d_key, ci, doc_base, block=block, s=s, k=k, n_docs=n_docs,
-            interpret=rank_interpret,
-        )
     return rank_candidates(d_key, ci, doc_base, s, k, n_docs)

@@ -1,5 +1,5 @@
 """Hybrid retrieval: dense-embedding rerank of lexical candidates
-(BASELINE.json:11 "BM25 candidate gen + dense-embedding Pallas rerank").
+(BASELINE.json:11 "BM25 candidate gen + dense-embedding rerank").
 
 Embeddings are deterministic feature-hash projections of each doc's
 materialized impact profile: posting (term t, doc d, val v) contributes
@@ -13,8 +13,8 @@ candidates are gathered and scored on device.
 
 Exactness scheme (DESIGN.md §2 spirit): every DEVICE-side number is an
 exact integer — embedding cells (int8), squared norms (int32 sums of
-squares), and candidate dot products (int-valued f32 MXU accumulation:
-|cell| <= EMB_CLIP so dots stay under 2^24 and f32 is exact). The only
+squares), and candidate dot products (int8 x int8 accumulated in
+int32; |cell| <= EMB_CLIP keeps every dot far inside int32). The only
 approximate math — cosine = dot / sqrt(ssq_q * ssq_d) and its
 quantization — runs on HOST in float64 from those exact integers, so
 rankings are deterministic across backends and identical to the pure-
@@ -31,7 +31,7 @@ import numpy as np
 F32 = np.float32
 
 EMB_QBITS = 5  # contribution quantization: rne(val * 2^5)
-EMB_CLIP = 63  # |cell| bound; dots <= dim * 63^2 < 2^24 stay f32-exact
+EMB_CLIP = 63  # |cell| bound; dots <= dim * 63^2 stay exact (< 2^24)
 
 
 def term_projection(term_hash: np.ndarray, dim: int):
@@ -132,81 +132,45 @@ def query_embeddings_int(
     return q, ssq
 
 
-def _dots_kernel(q_ref, c_ref, out_ref):
-    # q: (1, 1, E) f32, c: (1, K, E) f32 -> out (1, 1, K) f32
-    # (int-valued; |cells| <= EMB_CLIP keeps the MXU f32 accum exact)
-    q = q_ref[0]  # (1, E)
-    c = c_ref[0]  # (K, E)
-    out_ref[0] = jax.lax.dot_general(
-        q,
-        c,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (1, K)
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def rerank_dots_pallas(
-    qemb: jnp.ndarray,  # (nq, E) int8
-    cand_emb: jnp.ndarray,  # (nq, K, E) int8
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """(nq, K) int32 exact candidate dots, one query per grid step.
-
-    Blocks are 3-D with full trailing dims — Mosaic requires the last
-    two block dims to be tile-divisible or equal to the array dims."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nq, kk, e = cand_emb.shape
-    out = pl.pallas_call(
-        _dots_kernel,
-        grid=(nq,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, e), lambda q: (q, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, kk, e), lambda q: (q, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 1, kk), lambda q: (q, 0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nq, 1, kk), jnp.float32),
-        interpret=interpret,
-    )(
-        qemb.astype(jnp.float32)[:, None, :],
-        cand_emb.astype(jnp.float32),
+@jax.jit
+def rerank_dots(qemb: jnp.ndarray, cand_emb: jnp.ndarray) -> jnp.ndarray:
+    """(nq, K) int32 exact candidate dots: int8 operands accumulated in
+    int32 (|dot| <= dim * EMB_CLIP^2, far inside int32), so every backend
+    returns the same integers."""
+    return jax.lax.dot_general(
+        qemb,
+        cand_emb,
+        dimension_numbers=(((1,), (2,)), ((0,), (0,))),
+        preferred_element_type=jnp.int32,
     )
-    return out[:, 0, :].astype(jnp.int32)
 
 
 def rerank_dots_ref(qemb: jnp.ndarray, cand_emb: jnp.ndarray) -> jnp.ndarray:
-    """jnp reference of the exact integer dots (tested equal)."""
+    """jnp f32 reference of the exact integer dots (tested equal):
+    integer-valued products and sums stay exact in f32 below 2^24, given
+    full f32 precision (HIGHEST — a GPU's default f32 matmul is TF32)."""
     return jnp.einsum(
         "qe,qke->qk",
         qemb.astype(jnp.float32),
         cand_emb.astype(jnp.float32),
         preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     ).astype(jnp.int32)
 
 
-@partial(jax.jit, static_argnames=("interpret",))
+@jax.jit
 def gather_and_dot(
     emb: jnp.ndarray,  # (n_docs, dim) int8 device-resident
     ssq: jnp.ndarray,  # (n_docs,) int32
     qemb: jnp.ndarray,  # (nq, dim) int8
     gids: jnp.ndarray,  # (nq, K) int32 candidate doc ids (-1 = dead)
-    interpret: bool = False,
 ):
     """Device-side candidate gather + exact dots: (dots (nq, K) i32,
     cand_ssq (nq, K) i32). Dead candidates read row 0 (masked by the
     host ordering via lex <= 0)."""
     safe = jnp.maximum(gids, 0)
     cand = emb[safe]  # (nq, K, dim) row gather
-    dots = rerank_dots_pallas(qemb, cand, interpret=interpret)
-    return dots, ssq[safe]
+    return rerank_dots(qemb, cand), ssq[safe]
 
 
 def rerank_order_int(

@@ -41,35 +41,26 @@ def blocks_per_query(
 
 
 # (threshold, block): queries whose total postings are <= threshold use
-# that block size; tuned on the dev chip — this 2-family split beats any
-# uniform block by ~25% and a finer 4-family split by ~10% (more
-# sub-programs and tiny slices cost more than the padding they save).
+# that block size. The XLA twin sorts every lane of its uncompacted
+# n_blocks * block buffer, so light queries take fine blocks (less
+# ceil padding) and heavy ones coarse blocks (fewer slices). The values
+# have not been tuned on the GPU.
 DEFAULT_FAMILIES = ((8192, 256), (None, 1024))
 
-# The fused Pallas kernel prefers fewer, larger DMAs and fewer merge
-# levels over padding savings: round-2 bench measured uniform 2048 at
-# 51.7k qps vs 47.6k (1024) and 30.6k (the mixed 256/1024 split) on the
-# 1M-doc Zipf index. Round-4 roofline showed the DMA phase is
-# TRANSACTION-bound (~128 ns/DMA at 8% of HBM bandwidth), so 4096
-# halves the transactions for 2x the bytes: device step 89.5 -> 82.2
-# ms/8192 alone, 79.2 with DEPTH=8 (tools/step_ab.py). 4096 ==
-# NNZ_SLICE_MARGIN, the largest legal block.
+# The CUDA kernel compacts each block's real postings, so block padding
+# costs it nothing past the read: one family of the largest legal block
+# (NNZ_SLICE_MARGIN) keeps the plan tables short.
 FUSED_FAMILIES = ((None, 4096),)
 
 
 def compact_rows_per_query(lens: np.ndarray, block: int) -> np.ndarray:
     """(..., ) compacted candidate-buffer rows per query (summed over the
     slot axis, the last one): per slot, full blocks contribute block/128
-    rows each and the tail block its granule-rounded real rows — exactly
-    the space the fused kernel's dstrow compaction uses."""
-    from .fused_pallas import GRANULE_ROWS
-
-    g = GRANULE_ROWS * 128
+    rows each and the tail block its real rows rounded up — exactly
+    the space the CUDA kernel's dstrow compaction uses."""
     full = lens // block
     tail = lens - full * block
-    rows = full * (block // 128) + np.where(
-        tail > 0, (-(-tail // g)) * GRANULE_ROWS, 0
-    )
+    rows = full * (block // 128) + (-(-tail // 128))
     return rows.sum(axis=-1)
 
 
@@ -110,11 +101,9 @@ def split_pieces(
     quantile columns, and its per-slot DMA lengths (from the 128-aligned
     piece range starts — what the kernel will actually stream).
 
-    Rationale (tools/roofline.py): the rank network's cost is
-    passes(c_region) x c_region, superlinear in region size, and the
-    heavy tail dominates — bench traffic puts ~65% of rank ops in the
-    r_c >= 64 buckets holding ~20% of queries. Splitting a 256-row
-    query into 8 x 32-row doc-ranges cuts its counted rank ops ~40%."""
+    Rationale: ranking cost grows superlinearly with the candidate
+    buffer (a sort), and a split heavy query can fit the kernel's
+    shared memory where the whole query would not."""
     need = compact_rows_per_query(lens, block)  # (nq,)
     qidx, pno, cols = _piece_structure(need, threshold_rows, p)
     lens_p = _piece_lens(lens, rows, offs, qidx, cols)
@@ -201,9 +190,9 @@ def plan_batch(
 
     Returns [(query_indices, n_blocks, block_size, r_c)] covering every
     query exactly once. r_c is the bucket's compacted candidate-buffer
-    rows: with compact=True (the fused Pallas scorer) queries are
-    sub-bucketed by their real granule-rounded postings need, which the
-    kernel's merge/run-sum/top-k cost scales with; otherwise r_c is the
+    rows: with compact=True (the CUDA kernel) queries are sub-bucketed
+    by their real granule-rounded postings need, which the kernel's
+    sort/run-sum/top-k cost scales with; otherwise r_c is the
     uncompacted n_blocks * block / 128.
 
     lens (doc-range splitting): precomputed per-slot DMA lengths (e.g.

@@ -4,7 +4,7 @@ Ranking order is (score desc, doc id asc) — implemented as a two-key
 lexicographic `lax.sort` on (-score, id), which is exact on every backend
 (plain `lax.top_k` tie order is not guaranteed on all backends). This
 module is the dense reference ranker and the candidate-merge step; the
-production packed hot path ranks inside ops/packed.py / ops/rank_pallas.py.
+production hot path ranks inside ops/fused_cuda.py / ops/packed.py.
 """
 from __future__ import annotations
 
@@ -36,9 +36,9 @@ def topk_ranked(
 ):
     """Per-shard/segment top-k: (vals (nq,k) int32, gids (nq,k) int32).
 
-    Uses `lax.top_k`, which is tie-stable (lower index first) on both the
-    CPU and TPU backends — verified empirically and pinned by
-    test_topk.py::test_topk_tie_stability — so with ascending doc_ids the
+    Uses `lax.top_k`, which is tie-stable (lower index first) on the CPU
+    and GPU backends — pinned by test_topk.py::test_topk_tie_stability
+    and chip_smoke.py check_topk_ties — so with ascending doc_ids the
     result is exactly (score desc, id asc). Dead/padded docs score -1 and
     their gid is masked to -1.
     """
@@ -81,7 +81,7 @@ def merge_candidates(vals: jnp.ndarray, gids: jnp.ndarray, k: int):
     """Merge (nq, n_candidates) ranked candidates from several shards or
     segments into one global top-k, same (score desc, id asc) order.
 
-    This is the host-visible half of the all-gather merge over ICI
+    This is the host-visible half of the all-gather merge across devices
     (BASELINE.json:5); inputs are the concatenated per-shard candidates.
     """
     neg = -vals

@@ -3,11 +3,11 @@
 This is the "CPU reference run" of BASELINE.json:7 (the reference mount is
 empty — SURVEY.md §0 — so this oracle, plus spec.py, *is* the reference):
 tokenize -> dict inverted index -> TF-IDF/BM25 -> top-k, all on host, with
-the fixed-point deterministic scoring of DESIGN.md §2 so the TPU engine can
+the fixed-point deterministic scoring of DESIGN.md §2 so the device engine can
 be gated bit-identically against it.
 
 Deliberately simple and dictionary-based — structured like the small Python
-engine described in SURVEY.md §2a/§3a — NOT shaped like the TPU engine, so
+engine described in SURVEY.md §2a/§3a — NOT shaped like the device engine, so
 agreement between the two is meaningful.
 """
 from __future__ import annotations

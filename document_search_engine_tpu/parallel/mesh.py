@@ -3,7 +3,7 @@
 Document sharding is the only model-parallel axis a lexical index needs
 (SURVEY.md §2b): the CSR term-document matrix is partitioned by contiguous
 global doc-id ranges, queries are replicated, and the single collective is
-the per-batch all-gather of top-k candidates over ICI.
+the per-batch all-gather of top-k candidates.
 """
 from __future__ import annotations
 

@@ -33,8 +33,8 @@ inline bool is_alnum_lower(unsigned char c, unsigned char &lowered) {
 
 // Worker-thread count for the batch entry points: DSE_NATIVE_THREADS
 // env override, else std::thread::hardware_concurrency(), capped at 16.
-// 1 disables threading (the dev box is single-core; real TPU hosts have
-// dozens of cores and the analysis phases are embarrassingly parallel
+// 1 disables threading (serving hosts have dozens of cores and the
+// analysis phases are embarrassingly parallel
 // over docs/queries). ctypes releases the GIL around these calls, so
 // the workers run truly concurrent with the Python caller.
 int native_threads() {

@@ -1,7 +1,7 @@
 """Oracle sanity: the frozen CPU reference behaves like a search engine.
 
 These tests pin oracle behavior; the engine parity gate (test_parity.py)
-then pins the TPU engine to the oracle bit-for-bit (BASELINE.json:5).
+then pins the device engine to the oracle bit-for-bit (BASELINE.json:5).
 """
 import numpy as np
 

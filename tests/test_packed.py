@@ -107,7 +107,7 @@ def make_aligned(indptr, post_doc, post_val, n_docs):
 def test_packed_ds_and_tables_match_packed():
     """The dynamic-slice (aligned-plane) variant and the plan-table XLA
     twin must equal the gather path exactly."""
-    from document_search_engine_tpu.ops.fused_pallas import plan_tables
+    from document_search_engine_tpu.ops.plan import plan_tables
     from document_search_engine_tpu.ops.packed import (
         search_packed_ds,
         search_packed_tables,

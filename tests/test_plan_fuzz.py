@@ -1,6 +1,6 @@
 """Fuzz the production staging path: random CSR shapes and query mixes
-through plan_tables -> search_packed_tables (the XLA twin of the fused
-kernel, consuming the identical DMA plan) must match the gather-path
+through plan_tables -> search_packed_tables (the XLA twin of the CUDA
+kernel, consuming the identical plan) must match the gather-path
 reference bit-for-bit; and the pipelined search_stream must equal plain
 search on both engines."""
 import jax.numpy as jnp
@@ -10,7 +10,7 @@ import pytest
 from document_search_engine_tpu.config import IndexConfig, ScoringConfig
 from document_search_engine_tpu.corpus.synth import synth_corpus, synth_queries
 from document_search_engine_tpu.engine.engine import SearchEngine
-from document_search_engine_tpu.ops.fused_pallas import plan_tables
+from document_search_engine_tpu.ops.plan import plan_tables
 from document_search_engine_tpu.ops.packed import (
     search_packed,
     search_packed_tables,
@@ -61,9 +61,7 @@ def test_plan_tables_fuzz(seed):
     )
     sr, rm, ab, dst = plan_tables(row_start, indptr, rows, coeff, nb, block)
     # device-side expansion must equal the host planner bit-for-bit
-    from document_search_engine_tpu.ops.fused_pallas import (
-        expand_plan_tables,
-    )
+    from document_search_engine_tpu.ops.plan import expand_plan_tables
 
     sr_d, rm_d, ab_d, dst_d = expand_plan_tables(
         jnp.asarray(row_start.astype(np.int32)), jnp.asarray(indptr),

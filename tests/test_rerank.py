@@ -12,7 +12,7 @@ from document_search_engine_tpu.ops.rerank import (
     device_doc_embeddings_int,
     doc_embeddings_int,
     query_embeddings_int,
-    rerank_dots_pallas,
+    rerank_dots,
     rerank_dots_ref,
     rerank_order_int,
     term_projection,
@@ -62,14 +62,13 @@ def test_device_embeddings_match_host():
 
 
 def test_dots_exact_integers():
-    """The Pallas MXU dots and the jnp reference must agree EXACTLY:
-    |cells| <= EMB_CLIP keeps the f32 accumulation integer-exact."""
+    """The int8 x int8 -> int32 dots and the f32 HIGHEST-precision
+    reference must agree EXACTLY with numpy's int64 dots."""
     rng = np.random.default_rng(0)
     q = rng.integers(-EMB_CLIP, EMB_CLIP + 1, (4, 128)).astype(np.int8)
     c = rng.integers(-EMB_CLIP, EMB_CLIP + 1, (4, 16, 128)).astype(np.int8)
-    got = np.asarray(
-        rerank_dots_pallas(jnp.asarray(q), jnp.asarray(c), interpret=True)
-    )
+    got = np.asarray(rerank_dots(jnp.asarray(q), jnp.asarray(c)))
+    assert got.dtype == np.int32
     ref = np.asarray(rerank_dots_ref(jnp.asarray(q), jnp.asarray(c)))
     np.testing.assert_array_equal(got, ref)
     exact = np.einsum(

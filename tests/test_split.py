@@ -1,23 +1,24 @@
 """Doc-range splitting of heavy queries (ops/schedule.py split_pieces +
-the fused kernel's dlim mask): pieces are doc-DISJOINT ranges of one
-query, each ranked in a smaller region, merged by (score desc, gid asc)
-— every doc's integer score is complete within exactly one piece, so
-the merged ranking must equal the unsplit ranking bit for bit (the same
-argument as the doc-sharded segment merge)."""
+the scorers' dlim mask): pieces are doc-DISJOINT ranges of one query,
+each ranked in a smaller buffer, merged by (score desc, gid asc) —
+every doc's integer score is complete within exactly one piece, so the
+merged ranking must equal the unsplit ranking bit for bit (the same
+argument as the doc-sharded segment merge). On the CPU the pieces run
+through the XLA twin; splitting needs a single block family."""
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from document_search_engine_tpu.config import IndexConfig, ScoringConfig
 from document_search_engine_tpu.index import builder as B
-from document_search_engine_tpu.ops.fused_pallas import (
+from document_search_engine_tpu.ops.packed import search_packed_tables
+from document_search_engine_tpu.ops.plan import (
     expand_plan_tables,
-    fused_search_pallas,
     plan_tables,
 )
-from document_search_engine_tpu.ops.packed import search_packed_tables
 from document_search_engine_tpu.ops.schedule import block_plan
 from test_packed import make_aligned
+
+SPLIT_FAMILIES = ((None, 512),)
 
 
 def _csr(rng, n_terms, n_docs, max_len):
@@ -86,9 +87,8 @@ def test_doc_quantile_device_zero_length_row():
 
 
 def test_split_pieces_match_unsplit_kernel_and_twin():
-    """Per-piece kernel output == XLA twin on the same piece plan; the
-    device plan expansion (offs gather) == the host piece plan; merged
-    piece top-ks == the unsplit ranking."""
+    """The device plan expansion (offs gather) == the host piece plan;
+    merged piece top-ks of the twin == its unsplit ranking."""
     rng = np.random.default_rng(13)
     n_terms, n_docs, p = 25, 3000, 8
     indptr, post_doc, post_val = _csr(rng, n_terms, n_docs, 2000)
@@ -103,11 +103,11 @@ def test_split_pieces_match_unsplit_kernel_and_twin():
     clip = float(np.float32(65075262.0))
     nb = block_plan(indptr, rows, coeff > 0, block=block)
     sr, rm, ab, dst = plan_tables(row_start, indptr, rows, coeff, nb, block)
-    ref = fused_search_pallas(
+    ref = search_packed_tables(
         jnp.asarray(d2), jnp.asarray(v2), jnp.asarray(sr),
-        jnp.asarray(rm), jnp.asarray(ab), jnp.asarray(dst),
-        n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs,
-        scale=scale, clip=clip, r_c=None, q_stack=1, interpret=True,
+        jnp.asarray(rm), jnp.asarray(ab), jnp.float32(scale),
+        jnp.float32(clip), jnp.int32(0), n_blocks=nb, block=block,
+        s=s, k=k, n_docs=n_docs,
     )
     rv, rd = np.asarray(ref[0]), np.asarray(ref[1])
     m = 4
@@ -130,24 +130,13 @@ def test_split_pieces_match_unsplit_kernel_and_twin():
         .astype(np.int32)
         .reshape(nq * m, 1, 2)
     )
-    got = fused_search_pallas(
-        jnp.asarray(d2), jnp.asarray(v2), jnp.asarray(sr2),
-        jnp.asarray(rm2), jnp.asarray(ab2), jnp.asarray(dst2),
-        n_blocks=nb, block=block, s=s, k=k, n_docs=n_docs,
-        scale=scale, clip=clip, r_c=None, q_stack=1, interpret=True,
-        dlim=jnp.asarray(dlim),
-    )
-    pv, pd = np.asarray(got[0]), np.asarray(got[1])
     tw = search_packed_tables(
         jnp.asarray(d2), jnp.asarray(v2), jnp.asarray(sr2),
         jnp.asarray(rm2), jnp.asarray(ab2), jnp.float32(scale),
         jnp.float32(clip), jnp.int32(0), n_blocks=nb, block=block,
         s=s, k=k, n_docs=n_docs, dlim=jnp.asarray(dlim),
     )
-    np.testing.assert_array_equal(pv, np.asarray(tw[0]))
-    np.testing.assert_array_equal(
-        np.where(pv > 0, pd, -1), np.asarray(tw[1])
-    )
+    pv, pd = np.asarray(tw[0]), np.asarray(tw[1])
     e = expand_plan_tables(
         jnp.asarray(row_start.astype(np.int32)), jnp.asarray(indptr),
         jnp.asarray(rows_p), jnp.asarray(coeff_p.view(np.int32)),
@@ -191,7 +180,7 @@ def test_split_engine_matches_oracle_multisegment():
         oid, osc = orc.search(queries, k=10)
 
         eng = SearchEngine(cfg)
-        eng.scorer = "fused"
+        eng.block_families = SPLIT_FAMILIES
         eng.auto_compact_segments = None  # keep 2 segments alive
         eng.split_rows = 2
         eng.build(docs[:500])
@@ -202,40 +191,6 @@ def test_split_engine_matches_oracle_multisegment():
         np.testing.assert_array_equal(np.asarray(ids), np.asarray(oid), kind)
         np.testing.assert_array_equal(np.asarray(sc), np.asarray(osc), kind)
         assert eng.plan_cache.hits >= 1, "preplan seeding missed"
-
-
-def test_split_with_merge_flip():
-    """Doc-range splitting composed with the flip-first merge scheme
-    (the two pending hardware levers) must stay bit-identical to the
-    oracle through the full engine."""
-    from document_search_engine_tpu.corpus.synth import (
-        synth_corpus,
-        synth_queries,
-    )
-    from document_search_engine_tpu.engine.engine import SearchEngine
-    from document_search_engine_tpu.oracle.oracle import OracleEngine
-    from document_search_engine_tpu.ops import rank_pallas as rp
-
-    docs = synth_corpus(n_docs=500, vocab_size=220, mean_len=30, seed=71)
-    queries = synth_queries(docs, n_queries=12, terms_per_query=4, seed=72)
-    cfg = IndexConfig(scoring=ScoringConfig(kind="bm25"))
-    orc = OracleEngine(cfg)
-    orc.build(docs)
-    oid, osc = orc.search(queries, k=10)
-    saved = rp.MERGE_FLIP
-    try:
-        rp.MERGE_FLIP = True
-        jax.clear_caches()
-        eng = SearchEngine(cfg)
-        eng.scorer = "fused"
-        eng.split_rows = 2
-        eng.build(docs)
-        ids, sc = eng.search(queries, k=10)
-        np.testing.assert_array_equal(np.asarray(ids), np.asarray(oid))
-        np.testing.assert_array_equal(np.asarray(sc), np.asarray(osc))
-    finally:
-        rp.MERGE_FLIP = saved
-        jax.clear_caches()
 
 
 def test_split_mixed_population_thresholds():
@@ -252,12 +207,12 @@ def test_split_mixed_population_thresholds():
     queries = synth_queries(docs, n_queries=24, terms_per_query=5, seed=82)
     cfg = IndexConfig(scoring=ScoringConfig(kind="bm25"))
     base = SearchEngine(cfg)
-    base.scorer = "fused"
+    base.block_families = SPLIT_FAMILIES
     base.build(docs)
     bid, bsc = base.search(queries, k=10)
     for thr in (4, 16):
         eng = SearchEngine(cfg)
-        eng.scorer = "fused"
+        eng.block_families = SPLIT_FAMILIES
         eng.split_rows = thr
         eng.build(docs)
         ids, sc = eng.search(queries, k=10)
@@ -287,7 +242,7 @@ def test_split_with_empty_vocab_segment():
     orc.build(docs)
     orc.add_docs(["", "  ", ""])
     eng = SearchEngine(cfg)
-    eng.scorer = "fused"
+    eng.block_families = SPLIT_FAMILIES
     eng.split_rows = 2
     eng.auto_compact_segments = None
     eng.build(docs)

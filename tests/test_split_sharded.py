@@ -15,6 +15,7 @@ from document_search_engine_tpu.oracle import OracleEngine
 from document_search_engine_tpu.parallel.dist import DistributedSearchEngine
 from document_search_engine_tpu.parallel.mesh import make_mesh
 
+SPLIT_FAMILIES = ((None, 512),)  # splitting needs one block family
 
 @pytest.fixture(scope="module")
 def corpus():
@@ -66,14 +67,14 @@ def test_sharded_split_invariance(corpus, n_shards):
     oid, osc = orc.search(queries, k=10)
 
     base = DistributedSearchEngine(cfg, mesh=make_mesh(n_shards))
-    base.scorer = "fused"
+    base.block_families = SPLIT_FAMILIES
     base.build(docs)
     bid, bsc = base.search(queries, k=10)
     np.testing.assert_array_equal(bid, oid)
     np.testing.assert_array_equal(bsc, osc)
 
     dist = DistributedSearchEngine(cfg, mesh=make_mesh(n_shards))
-    dist.scorer = "fused"
+    dist.block_families = SPLIT_FAMILIES
     dist.split_rows = 2
     dist.build(docs)
     d_ids, d_scores = dist.search(queries, k=10)
@@ -84,8 +85,8 @@ def test_sharded_split_invariance(corpus, n_shards):
 def test_sharded_split_mixed_thresholds_and_stream(corpus):
     """Realistic thresholds (mixed split/unsplit populations in one
     batch) through search_stream with a preplan-seeded layout; also
-    pins the xla twin path under splitting (scorer='xla' never splits
-    — _split_active gates on fused — so results must still match)."""
+    pins the default two-family twin plan, which never splits
+    (_split_active needs one block family), against the split one."""
     docs, queries = corpus
     cfg = IndexConfig(scoring=ScoringConfig(kind="tfidf"))
     single = SearchEngine(cfg)
@@ -93,7 +94,7 @@ def test_sharded_split_mixed_thresholds_and_stream(corpus):
     r_ids, r_scores = single.search(queries, k=10)
     for thr in (4, 16):
         dist = DistributedSearchEngine(cfg, mesh=make_mesh(2))
-        dist.scorer = "fused"
+        dist.block_families = SPLIT_FAMILIES
         dist.split_rows = thr
         dist.build(docs)
         dist.preplan([queries], k=10)
@@ -114,7 +115,7 @@ def test_sharded_split_incremental_updates(corpus):
     single = SearchEngine(cfg)
     single.build(docs[:90])
     dist = DistributedSearchEngine(cfg, mesh=make_mesh(2))
-    dist.scorer = "fused"
+    dist.block_families = SPLIT_FAMILIES
     dist.split_rows = 2
     dist.build(docs[:90])
     # populate the quantile cache, then mutate the index
@@ -127,32 +128,3 @@ def test_sharded_split_incremental_updates(corpus):
     d_ids, d_scores = dist.search(queries, k=10)
     np.testing.assert_array_equal(d_ids, r_ids)
     np.testing.assert_array_equal(d_scores, r_scores)
-
-
-def test_sharded_split_with_merge_flip(corpus):
-    """The two pending hardware levers composed INSIDE the SPMD engine
-    (flip-first merge scheme + doc-range pieces with per-shard doc
-    limits) must stay bit-identical to the oracle."""
-    import jax
-
-    from document_search_engine_tpu.ops import rank_pallas as rp
-
-    docs, queries = corpus
-    cfg = IndexConfig(scoring=ScoringConfig(kind="bm25"))
-    orc = OracleEngine(cfg)
-    orc.build(docs)
-    oid, osc = orc.search(queries, k=10)
-    saved = rp.MERGE_FLIP
-    try:
-        rp.MERGE_FLIP = True
-        jax.clear_caches()
-        dist = DistributedSearchEngine(cfg, mesh=make_mesh(2))
-        dist.scorer = "fused"
-        dist.split_rows = 2
-        dist.build(docs)
-        d_ids, d_scores = dist.search(queries, k=10)
-        np.testing.assert_array_equal(d_ids, oid)
-        np.testing.assert_array_equal(d_scores, osc)
-    finally:
-        rp.MERGE_FLIP = saved
-        jax.clear_caches()

@@ -10,7 +10,7 @@ this measures what segment fragmentation actually costs per query and
 how the compiled-program size grows — the data the lifecycle defaults
 should come from.
 
-Run on the real chip: python tools/segments_bench.py
+Run on the GPU: python tools/segments_bench.py
 Env: SEG_DOCS (96000), SEG_VOCAB (30000), SEG_NQ (8192), SEG_ITERS
 (16), SEG_COUNTS (1,2,4,8,16), SEG_KIND (bm25).
 """
@@ -35,10 +35,6 @@ def log(msg):
 def main():
     enable_persistent_cache()
     import jax
-
-    from document_search_engine_tpu.utils.cache import apply_env_platform
-
-    apply_env_platform()
 
     from document_search_engine_tpu.config import IndexConfig, ScoringConfig
     from document_search_engine_tpu.corpus.synth import (
